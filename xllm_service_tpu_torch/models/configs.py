@@ -1,0 +1,568 @@
+"""Model architecture configs + registry.
+
+A copy of the JAX package's `models/configs.py` (same dataclass, same
+registrations), kept here so the PyTorch port imports nothing from the JAX
+package. The port's model code (models/llama.py) serves the dense GQA
+llama family of this registry; the MoE, MLA and M-RoPE fields are carried
+so both registries stay one table.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    vocab_size: int
+    hidden_size: int
+    intermediate_size: int
+    num_layers: int
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    rope_theta: float = 500000.0
+    # HF `rope_scaling` (ops/rope.rope_parameters implements the math;
+    # runtime/weights.config_from_hf parses it and LOUDLY rejects types
+    # not listed there). "" = plain theta. Tuples keep the frozen config
+    # hashable for jit static args.
+    # "linear" | "dynamic" | "llama3" | "longrope" | "yarn"
+    rope_scaling_type: str = ""
+    rope_scaling_factor: float = 1.0
+    rope_original_max_position: int = 0  # 0 = max_position_embeddings
+    rope_low_freq_factor: float = 1.0  # llama3
+    rope_high_freq_factor: float = 4.0  # llama3
+    rope_short_factor: tuple = ()  # longrope per-band tables [head_dim/2]
+    rope_long_factor: tuple = ()
+    rope_attention_factor: float = 0.0  # longrope/yarn; 0 = HF formula
+    rope_beta_fast: float = 32.0  # yarn correction-range bounds
+    rope_beta_slow: float = 1.0
+    rope_mscale: float = 0.0  # yarn (DeepSeek): attention-factor numerator
+    rope_mscale_all_dim: float = 0.0  # ...and denominator / softmax scale
+    rope_scaling_truncate: bool = True  # yarn: floor/ceil the range
+    rms_norm_eps: float = 1e-5
+    max_position_embeddings: int = 8192
+    tie_word_embeddings: bool = False
+    # MoE (0 experts = dense).
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    moe_intermediate_size: int = 0
+    # Router semantics. "softmax" scoring + norm_topk_prob covers
+    # Mixtral/Qwen3 (top-k renormalized full-softmax probs — identical
+    # to softmaxing the top-k logits); DeepSeek adds "sigmoid" scoring
+    # (V3), group-limited selection (n_group/topk_group; "noaux_tc"
+    # scores groups by top-2 sums with a selection-only correction bias,
+    # "group_limited_greedy" by group max), optional non-normalized
+    # weights, and routed_scaling_factor.
+    scoring_func: str = "softmax"
+    topk_method: str = "plain"
+    n_group: int = 0
+    topk_group: int = 0
+    norm_topk_prob: bool = True
+    routed_scaling_factor: float = 1.0
+    # Sliding-window attention (0 = full).
+    sliding_window: int = 0
+    # Gemma-family deltas: GELU-tanh gated MLP (vs SwiGLU), embeddings
+    # scaled by sqrt(hidden_size), and zero-centered RMSNorm weights in
+    # the CHECKPOINT (the loader adds 1 so rms_norm stays uniform).
+    mlp_act: str = "silu"
+    embed_scale: bool = False
+    norm_zero_centered: bool = False
+    # Qwen2-VL M-RoPE half-dim sections ((t, h, w) streams; empty =
+    # standard 1D RoPE). Equal streams reduce M-RoPE to standard RoPE,
+    # so text tokens and decode steps need no special handling; image
+    # spans inside a prompt carry [3, L] positions (models/llama.py).
+    mrope_section: tuple = ()
+    # Disable head_dim<128 packed cache rows (kv_cache.kv_pack_factor).
+    # Set by the executor (sharding.resolve_kv_packing) when tp doesn't
+    # divide the packed head count — the unpacked layout keeps every
+    # tp that divides num_kv_heads functional via the gather path.
+    kv_pack_disable: bool = False
+    # QKV projection bias (Qwen2-style).
+    attn_bias: bool = False
+    # Per-head RMSNorm on q and k before RoPE (Qwen3-style QK-norm).
+    qk_norm: bool = False
+    # Multi-head Latent Attention (DeepSeek-V2/V3). kv_lora_rank > 0 turns
+    # MLA on: the paged cache stores ONE compressed latent row per token
+    # (kv_lora_rank + qk_rope_head_dim floats) instead of per-head K/V —
+    # e.g. 576 vs 2048 floats/token for a 70B-class GQA layout, a ~3.5x
+    # HBM/bandwidth win for long contexts.
+    kv_lora_rank: int = 0
+    q_lora_rank: int = 0  # 0 = direct q projection (V2-Lite style)
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    # MoE shared experts (DeepSeek style): dense FFN of
+    # n_shared_experts * moe_intermediate_size always active.
+    n_shared_experts: int = 0
+    # DeepSeek-V2/V3 heterogeneous stack: the first k layers use a dense
+    # SwiGLU of `intermediate_size` instead of the MoE block (HF config
+    # first_k_dense_replace). The param pytree splits into a `dense_layers`
+    # prefix stack and the MoE `layers` suffix stack; each runs its own
+    # lax.scan (models/deepseek.py _scan_stack).
+    first_k_dense_replace: int = 0
+
+    @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
+
+    @property
+    def is_mla(self) -> bool:
+        return self.kv_lora_rank > 0
+
+    @property
+    def mla_row_dim(self) -> int:
+        """True latent floats per token: c_kv + shared RoPE key."""
+        return self.kv_lora_rank + self.qk_rope_head_dim
+
+    @property
+    def mla_cache_dim(self) -> int:
+        """Latent cache lanes per token: mla_row_dim padded to a multiple
+        of 128. Mosaic DMA slices need 128-aligned lane extents on real
+        hardware (chip finding, round 3), so the pool stores zero-padded
+        rows; q_lat pads with zeros too, making the extra lanes inert in
+        every score/context contraction."""
+        return (self.mla_row_dim + 127) // 128 * 128
+
+
+def approx_param_count(cfg: ModelConfig) -> int:
+    """Analytic parameter count (norm weights omitted — noise at scale).
+    Single source for HBM budgeting: runtime/executor._decide_num_blocks
+    sizes the KV pool with it and __graft_entry__'s dress rehearsal
+    checks serving layouts against it."""
+    E, L = cfg.hidden_size, cfg.num_layers
+    if cfg.is_mla:
+        dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+        kvr, qr, Hq = cfg.kv_lora_rank, cfg.q_lora_rank, cfg.num_heads
+        attn = (
+            E * (kvr + dr)
+            + Hq * kvr * (dn + dv)
+            + Hq * dv * E
+            + (E * qr + qr * Hq * (dn + dr) if qr else E * Hq * (dn + dr))
+        )
+    else:
+        attn = (
+            E * (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim
+            + cfg.num_heads * cfg.head_dim * E
+        )
+    if cfg.is_moe:
+        moe_mlp = 3 * E * (
+            cfg.moe_intermediate_size * cfg.num_experts
+            + cfg.n_shared_experts * cfg.moe_intermediate_size
+        ) + E * cfg.num_experts  # router
+    else:
+        moe_mlp = 3 * E * cfg.intermediate_size
+    kd = cfg.first_k_dense_replace
+    mlp_total = (L - kd) * moe_mlp + kd * 3 * E * cfg.intermediate_size
+    return (
+        cfg.vocab_size * E * (1 if cfg.tie_word_embeddings else 2)
+        + L * attn
+        + mlp_total
+    )
+
+
+_REGISTRY: Dict[str, ModelConfig] = {}
+
+
+def register(cfg: ModelConfig) -> ModelConfig:
+    _REGISTRY[cfg.name] = cfg
+    return cfg
+
+
+def get_model_config(name: str) -> ModelConfig:
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown model config '{name}'; have {sorted(_REGISTRY)}")
+    return _REGISTRY[name]
+
+
+def list_model_configs():
+    return sorted(_REGISTRY)
+
+
+# --- Test-scale configs (CPU-runnable CI) -----------------------------------
+
+register(
+    ModelConfig(
+        name="llama3-tiny",
+        vocab_size=512,
+        hidden_size=128,
+        intermediate_size=256,
+        num_layers=2,
+        num_heads=4,
+        num_kv_heads=2,
+        head_dim=32,
+        max_position_embeddings=1024,
+    )
+)
+
+register(
+    ModelConfig(
+        name="moe-tiny",
+        vocab_size=512,
+        hidden_size=128,
+        intermediate_size=256,
+        num_layers=2,
+        num_heads=4,
+        num_kv_heads=2,
+        head_dim=32,
+        num_experts=8,
+        num_experts_per_tok=2,
+        moe_intermediate_size=128,
+        max_position_embeddings=1024,
+    )
+)
+
+register(
+    ModelConfig(
+        name="gemma-tiny",
+        vocab_size=512,
+        hidden_size=128,
+        intermediate_size=256,
+        num_layers=2,
+        num_heads=4,
+        num_kv_heads=2,
+        head_dim=32,
+        rope_theta=10000.0,
+        rms_norm_eps=1e-6,
+        tie_word_embeddings=True,
+        mlp_act="gelu_tanh",
+        embed_scale=True,
+        norm_zero_centered=True,
+        max_position_embeddings=1024,
+    )
+)
+
+# --- Production configs -----------------------------------------------------
+
+register(
+    ModelConfig(
+        name="llama3-1b",
+        vocab_size=128256,
+        hidden_size=2048,
+        intermediate_size=8192,
+        num_layers=16,
+        num_heads=32,
+        num_kv_heads=8,
+        head_dim=64,
+        tie_word_embeddings=True,
+    )
+)
+
+register(
+    ModelConfig(
+        name="llama3-3b",
+        vocab_size=128256,
+        hidden_size=3072,
+        intermediate_size=8192,
+        num_layers=28,
+        num_heads=24,
+        num_kv_heads=8,
+        head_dim=128,
+        rope_theta=500000.0,
+        tie_word_embeddings=True,
+    )
+)
+
+register(
+    ModelConfig(
+        name="llama3-8b",
+        vocab_size=128256,
+        hidden_size=4096,
+        intermediate_size=14336,
+        num_layers=32,
+        num_heads=32,
+        num_kv_heads=8,
+        head_dim=128,
+    )
+)
+
+register(
+    ModelConfig(
+        name="llama3-70b",
+        vocab_size=128256,
+        hidden_size=8192,
+        intermediate_size=28672,
+        num_layers=80,
+        num_heads=64,
+        num_kv_heads=8,
+        head_dim=128,
+    )
+)
+
+register(
+    ModelConfig(
+        name="qwen2-7b",
+        vocab_size=152064,
+        hidden_size=3584,
+        intermediate_size=18944,
+        num_layers=28,
+        num_heads=28,
+        num_kv_heads=4,
+        head_dim=128,
+        rope_theta=1000000.0,
+        rms_norm_eps=1e-6,
+        attn_bias=True,
+    )
+)
+
+register(
+    ModelConfig(
+        name="qwen3-8b",
+        vocab_size=151936,
+        hidden_size=4096,
+        intermediate_size=12288,
+        num_layers=36,
+        num_heads=32,
+        num_kv_heads=8,
+        head_dim=128,
+        rope_theta=1000000.0,
+        rms_norm_eps=1e-6,
+        qk_norm=True,
+    )
+)
+
+register(
+    # Qwen3-30B-A3B: 128-expert top-8 MoE, no shared experts; router
+    # weighting is softmax over the selected experts' logits, which the
+    # shared _mlp already computes (identical to renormalized-top-k).
+    ModelConfig(
+        name="qwen3-30b-a3b",
+        vocab_size=151936,
+        hidden_size=2048,
+        intermediate_size=6144,
+        num_layers=48,
+        num_heads=32,
+        num_kv_heads=4,
+        head_dim=128,
+        rope_theta=1000000.0,
+        rms_norm_eps=1e-6,
+        qk_norm=True,
+        num_experts=128,
+        num_experts_per_tok=8,
+        moe_intermediate_size=768,
+    )
+)
+
+register(
+    ModelConfig(
+        name="qwen3-tiny",
+        vocab_size=512,
+        hidden_size=96,
+        intermediate_size=256,
+        num_layers=2,
+        num_heads=4,
+        num_kv_heads=2,
+        head_dim=24,
+        rope_theta=10000.0,
+        qk_norm=True,
+    )
+)
+
+register(
+    # head_dim 64 with 2 kv heads: exercises the packed-pair KV layout
+    # (kv_cache.kv_pack_factor P=2 -> one 128-lane cache row per pair).
+    ModelConfig(
+        name="llama3-packed-tiny",
+        vocab_size=512,
+        hidden_size=128,
+        intermediate_size=256,
+        num_layers=2,
+        num_heads=4,
+        num_kv_heads=2,
+        head_dim=64,
+        max_position_embeddings=1024,
+    )
+)
+
+register(
+    # The sharded-engine differential geometry (docs/SHARDING.md): 8 KV
+    # heads so tp ∈ {2, 4, 8} all divide (llama3-tiny's Hkv=2 caps at
+    # tp=2), head_dim 128 so every Pallas path is kernel-eligible
+    # per-shard down to 1 head/shard (interpret mode on the virtual
+    # mesh), and GQA ratio 2 so per-shard query packing still exercises
+    # grouping. CPU-runnable; the same shape class as the llama3-70b
+    # tp=8 serving layout (BASELINE round 3), just tiny.
+    ModelConfig(
+        name="llama3-shard-tiny",
+        vocab_size=512,
+        hidden_size=128,
+        intermediate_size=256,
+        num_layers=2,
+        num_heads=16,
+        num_kv_heads=8,
+        head_dim=128,
+        max_position_embeddings=1024,
+    )
+)
+
+register(
+    # The MoE serving differential geometry (docs/MOE.md): llama3-
+    # shard-tiny's kernel-eligible attention dims (Hkv=8, D=128 — every
+    # tp ∈ {1, 2, 4, 8} divides, every Pallas path eligible per-shard)
+    # plus an 8-expert top-2 MoE whose dims keep every tp×ep
+    # combination eligible too: X=8 divides ep ∈ {1, 2, 4, 8},
+    # E=128 and Fm=256 are 128-lane multiples (the grouped-dispatch
+    # kernel gate), and Fm%tp holds through tp=2. CPU-runnable; the
+    # same shape class as the qwen3-30b-a3b / deepseek-v3 EP serving
+    # layouts, just tiny.
+    ModelConfig(
+        name="moe-shard-tiny",
+        vocab_size=512,
+        hidden_size=128,
+        intermediate_size=256,
+        num_layers=2,
+        num_heads=16,
+        num_kv_heads=8,
+        head_dim=128,
+        num_experts=8,
+        num_experts_per_tok=2,
+        moe_intermediate_size=256,
+        max_position_embeddings=1024,
+    )
+)
+
+register(
+    ModelConfig(
+        name="qwen3-moe-tiny",
+        vocab_size=512,
+        hidden_size=96,
+        intermediate_size=256,
+        num_layers=2,
+        num_heads=4,
+        num_kv_heads=2,
+        head_dim=24,
+        rope_theta=10000.0,
+        qk_norm=True,
+        num_experts=4,
+        num_experts_per_tok=2,
+        moe_intermediate_size=64,
+    )
+)
+
+register(
+    ModelConfig(
+        name="deepseek-tiny",
+        vocab_size=512,
+        hidden_size=128,
+        intermediate_size=256,
+        num_layers=2,
+        num_heads=4,
+        num_kv_heads=4,  # MLA is effectively MHA over latents
+        head_dim=32,  # unused by MLA paths (qk dims below rule)
+        # Pairwise-DISTINCT dims (kvr != dn != dv) so any transposed or
+        # double-applied projection fails shape checks instead of silently
+        # computing garbage.
+        kv_lora_rank=40,
+        q_lora_rank=48,
+        qk_nope_head_dim=32,
+        qk_rope_head_dim=16,
+        v_head_dim=24,
+        max_position_embeddings=1024,
+    )
+)
+
+register(
+    ModelConfig(
+        name="deepseek-moe-tiny",
+        vocab_size=512,
+        hidden_size=128,
+        intermediate_size=256,
+        num_layers=2,
+        num_heads=4,
+        num_kv_heads=4,
+        head_dim=32,
+        kv_lora_rank=40,
+        q_lora_rank=0,  # V2-Lite-style direct q projection
+        qk_nope_head_dim=32,
+        qk_rope_head_dim=16,
+        v_head_dim=24,
+        num_experts=8,
+        num_experts_per_tok=2,
+        moe_intermediate_size=64,
+        n_shared_experts=2,
+        max_position_embeddings=1024,
+    )
+)
+
+register(
+    ModelConfig(
+        # Real-V2/V3 shape: dense first layer + MoE suffix (HF
+        # first_k_dense_replace) — drives the split-stack pytree paths.
+        name="deepseek-hetero-tiny",
+        vocab_size=512,
+        hidden_size=128,
+        intermediate_size=256,
+        num_layers=3,
+        num_heads=4,
+        num_kv_heads=4,
+        head_dim=32,
+        kv_lora_rank=40,
+        q_lora_rank=48,
+        qk_nope_head_dim=32,
+        qk_rope_head_dim=16,
+        v_head_dim=24,
+        num_experts=8,
+        num_experts_per_tok=2,
+        moe_intermediate_size=64,
+        n_shared_experts=2,
+        first_k_dense_replace=1,
+        max_position_embeddings=1024,
+    )
+)
+
+register(
+    ModelConfig(
+        name="mixtral-8x7b",
+        vocab_size=32000,
+        hidden_size=4096,
+        intermediate_size=14336,
+        num_layers=32,
+        num_heads=32,
+        num_kv_heads=8,
+        head_dim=128,
+        rope_theta=1000000.0,
+        num_experts=8,
+        num_experts_per_tok=2,
+        moe_intermediate_size=14336,
+    )
+)
+
+register(
+    ModelConfig(
+        name="deepseek-v3",
+        # arxiv 2412.19437 table 1 / HF config.json of DeepSeek-V3:
+        # 671B total, 37B active, MLA + 256-expert MoE with 1 shared expert.
+        vocab_size=129280,
+        hidden_size=7168,
+        intermediate_size=18432,
+        num_layers=61,
+        num_heads=128,
+        num_kv_heads=128,
+        head_dim=128,
+        kv_lora_rank=512,
+        q_lora_rank=1536,
+        qk_nope_head_dim=128,
+        qk_rope_head_dim=64,
+        v_head_dim=128,
+        rope_theta=10000.0,
+        num_experts=256,
+        num_experts_per_tok=8,
+        moe_intermediate_size=2048,
+        n_shared_experts=1,
+        first_k_dense_replace=3,  # V3: first 3 layers dense
+        rms_norm_eps=1e-6,
+        # Real V3 ships yarn (config.json rope_scaling): 4k pretraining
+        # context extended 40x; mscale_all_dim also scales the MLA
+        # softmax temperature (models/deepseek.mla_softmax_scale).
+        max_position_embeddings=163840,
+        rope_scaling_type="yarn",
+        rope_scaling_factor=40.0,
+        rope_original_max_position=4096,
+        rope_beta_fast=32.0,
+        rope_beta_slow=1.0,
+        rope_mscale=1.0,
+        rope_mscale_all_dim=1.0,
+    )
+)
